@@ -1,14 +1,23 @@
-"""kanzi_tpu: TPU-native lossless block compressor (kanzi bitstream v7)."""
+"""kanzi_tpu: lossless block compressor speaking the kanzi bitstream (v7),
+with optional JAX device stages."""
 
 import os as _os
+import sys as _sys
 
-# Persistent XLA compilation cache: device-gate kernels (ANS/Huffman/LZ) pay
-# their compile cost once per shape bucket per machine, not once per process.
-# jax reads these env vars at import, so setting them here covers every lazy
-# `import jax` in the package without importing jax eagerly.
-_os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    _os.path.join(_os.path.dirname(_os.path.abspath(__file__)), _os.pardir,
-                  ".jax_cache"))
-_os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1.0")
-_os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
+# Persistent XLA compilation cache: device stages pay their compile cost once
+# per shape bucket per machine, not once per process.  JAX_COMPILATION_CACHE_DIR
+# wins when set; otherwise the cache is <checkout>/.jax_cache.  jax reads these
+# variables when it is imported, so a jax imported before this package gets
+# the same settings through its config.
+_CACHE_SETTINGS = {
+    "jax_compilation_cache_dir": _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache"),
+    "jax_persistent_cache_min_compile_time_secs": 1.0,
+    "jax_persistent_cache_min_entry_size_bytes": 0,
+}
+for _name, _value in _CACHE_SETTINGS.items():
+    if _name.upper() not in _os.environ:
+        _os.environ[_name.upper()] = str(_value)
+        if "jax" in _sys.modules:
+            _sys.modules["jax"].config.update(_name, _value)

@@ -297,14 +297,14 @@ class BitReader:
         if self._pos + total > self._nbits:
             raise EOFError("bitstream exhausted")
         ends = np.cumsum(counts) + self._pos
-        starts = ends - counts
-        # read 8 bytes ending at each item's end (clamped)
-        data = self._data
-        padded = np.concatenate([np.zeros(8, dtype=np.uint8), data, np.zeros(8, dtype=np.uint8)])
+        # read the 8 bytes [byte_end-8, byte_end) ending at each item's end,
+        # from a zero-padded copy of only the span the items cover
         byte_end = (ends + 7) >> 3
-        # gather 8 bytes [byte_end-8, byte_end) from padded (offset +8)
-        idx = byte_end[:, None] + np.arange(8, dtype=np.int64)[None, :]  # padded idx
-        window = padded[idx]  # (n, 8) bytes, big-endian value ends at window end
+        lo = int(byte_end[0]) - 8
+        span = self._data[max(lo, 0):int(byte_end[-1])]
+        span = np.concatenate([np.zeros(max(-lo, 0), dtype=np.uint8), span])
+        idx = (byte_end - lo - 8)[:, None] + np.arange(8, dtype=np.int64)[None, :]
+        window = span[idx]  # (n, 8) bytes, big-endian value ends at window end
         vals = window.astype(_U64)
         weights = (_U64(1) << (np.arange(7, -1, -1, dtype=_U64) * _U64(8)))
         chunk = (vals * weights[None, :]).sum(axis=1, dtype=_U64)

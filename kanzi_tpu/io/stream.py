@@ -506,16 +506,9 @@ class CompressedOutputStream:
         first = (self.transform_type >> MAX_SHIFT) & MASK
         if first not in (LZ_TYPE, LZX_TYPE):
             return None
-        try:
-            import jax
-            if jax.default_backend() != "tpu" and \
-                    os.environ.get("KANZI_TPU_PALLAS_INTERPRET", "0") != "1":
-                return None
-            from ..ops.lz_sort import lzx_forward_device_batch
-            res = lzx_forward_device_batch(chunks, first == LZX_TYPE, 4)
-            return [(4, r) for r in res]
-        except Exception:
-            return None
+        from ..ops.lz_sort import lzx_forward_device_batch
+        res = lzx_forward_device_batch(chunks, first == LZX_TYPE, 4)
+        return [(4, r) for r in res]
 
     def close(self) -> None:
         if self._closed:

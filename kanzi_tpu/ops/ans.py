@@ -1,16 +1,16 @@
-"""TPU rANS kernels (order 0): chunk-parallel encode/decode in JAX.
+"""rANS order-0 lane scan in plain JAX: chunk-parallel encode/decode.
 
 The wire format (see entropy/ans.py) fixes 4 interleaved states per chunk and
 16 KiB chunks; parallelism comes from running ALL chunks of a block (and all
 blocks of a batch) in lockstep: one lax.scan over the 4096 symbol steps with
-(num_chunks, 4) vector lanes.  Emissions are resolved with the two-pass
-scheme: the scan records per-step emit flags + 16-bit values, then a
-vectorized prefix-sum scatter packs the payload — no data-dependent control
-flow, everything maps onto the VPU.
+(4, num_chunks) vector lanes.  Emissions are resolved in two passes: the scan
+records per-step emit flags + 16-bit values, then a prefix sum and a scatter
+pack the payload to the front of each row.
 
-Host responsibilities (kanzi_tpu/entropy/ans.py JAX path): per-chunk
-histogram + exact reference normalization (wire-identical headers), tail
-chunks, and bitstream assembly.
+This is the CPU path and the reference for the CUDA kernel
+(ops/ans_cuda.py); ops/route.py picks between them.  Host responsibilities
+(ops/ans_block.py): per-chunk histogram + exact reference normalization
+(wire-identical headers), tail chunks, and bitstream assembly.
 
 Encode state update: st >= f<<19 -> emit low 16 bits, st >>= 16;
 st' = (st/f)<<12 + st%f + cum  (logRange 12, ANS_TOP 1<<15).
@@ -20,8 +20,6 @@ from __future__ import annotations
 
 import functools
 
-import numpy as np
-
 import jax
 import jax.numpy as jnp
 
@@ -29,7 +27,6 @@ ANS_TOP = 1 << 15
 LOG_RANGE = 12
 SCALE = 1 << LOG_RANGE
 CHUNK = 16384
-STEPS = CHUNK // 4
 
 
 @jax.jit
@@ -38,122 +35,44 @@ def ans0_encode_chunks(chunks: jax.Array, freq: jax.Array, cum: jax.Array):
 
     Args:
       chunks: uint8 [N, C]
-      freq:   int32 [N, 256] normalized frequencies (sum = 4096, capped later)
+      freq:   int32 [N, 256] normalized frequencies (sum = 4096, capped here)
       cum:    int32 [N, 256] exclusive cumulative frequencies
     Returns:
       payload_u16: uint16 [N, C] emitted 16-bit words in forward order
+                   (entries past n_emit are unspecified)
       n_emit:      int32 [N] number of emitted words per chunk
       states:      int32 [N, 4] final ANS states (st0..st3)
     """
     n, c = chunks.shape
     steps = c // 4
-    freq_cap = jnp.minimum(freq, SCALE - 1)
-    g = chunks.reshape(n, steps, 4).astype(jnp.int32)
-    syms = g[:, ::-1, ::-1]                      # (N, S, 4) scan order
-    # Per-position table lookup as a blocked one-hot matmul (MXU) — an order
-    # of magnitude faster than an XLA gather here; f32 is exact for the
-    # 12-bit values.  Results land directly in scan layout (S, 4, N).
-    syms_nf = syms.reshape(n, steps * 4)                    # (N, S4)
-    tables = jnp.stack([freq_cap, cum], axis=-1).astype(jnp.float32)  # (N,256,2)
-    blk = 2048
-    if (steps * 4) % blk == 0 and steps * 4 >= blk:
-        def lookup_block(i):
-            sb = jax.lax.dynamic_slice(syms_nf, (0, i * blk), (n, blk))
-            oh = jax.nn.one_hot(sb, 256, dtype=jnp.float32)       # (N, blk, 256)
-            return jnp.einsum("nbc,nck->nbk", oh, tables,
-                              preferred_element_type=jnp.float32,
-                              precision=jax.lax.Precision.HIGHEST)  # (N, blk, 2)
-        fc = jax.lax.map(lookup_block, jnp.arange((steps * 4) // blk))
-        fc = jnp.transpose(fc, (1, 0, 2, 3)).reshape(n, steps * 4, 2)  # (N,S4,2)
-    else:
-        oh = jnp.asarray(jax.nn.one_hot(syms_nf, 256, dtype=jnp.float32))
-        fc = jnp.einsum("nbc,nck->nbk", oh, tables,
-                        preferred_element_type=jnp.float32,
-                        precision=jax.lax.Precision.HIGHEST)
-    f_all = jnp.transpose(fc[..., 0].astype(jnp.int32).reshape(n, steps, 4), (1, 2, 0))
-    c_all = jnp.transpose(fc[..., 1].astype(jnp.int32).reshape(n, steps, 4), (1, 2, 0))
-    xs = (f_all, c_all)
+    sym = chunks.astype(jnp.int32)
+    f_all = jnp.take_along_axis(jnp.minimum(freq, SCALE - 1), sym, axis=1)
+    c_all = jnp.take_along_axis(cum, sym, axis=1)
+
+    def scan_layout(x):  # step t, lane j encodes position 4*(S-1-t) + 3-j
+        return jnp.transpose(x.reshape(n, steps, 4)[:, ::-1, ::-1], (1, 2, 0))
 
     def step(st, x):
         f, cm = x                                         # (4, N) each
         em = (st >> 19) >= f                              # st >= f << 19
         val = st & 0xFFFF
         st1 = jnp.where(em, st >> 16, st)
-        # exact st1 // f: true f32 division (0.5 ulp) + one residual
-        # correction.  A pre-computed reciprocal multiply is NOT exact on
-        # TPU (approximate reciprocal) and corrupted streams.
-        q = (st1.astype(jnp.float32) / f.astype(jnp.float32)).astype(jnp.int32)
-        r = st1 - q * f
-        q = jnp.where(r < 0, q - 1, jnp.where(r >= f, q + 1, q))
-        r = st1 - q * f
-        st2 = (q << LOG_RANGE) + r + cm
-        return st2, (em, val)
+        q = st1 // f
+        return (q << LOG_RANGE) + (st1 - q * f) + cm, (em, val)
 
     st0 = jnp.full((4, n), ANS_TOP, dtype=jnp.int32)
-    states_t, (flags, vals) = jax.lax.scan(step, st0, xs)
-    states = states_t.T                                   # (N, 4)
-    # forward payload order: reverse steps, lanes 3..0; compact emitted words
-    # to the front of each row with a key sort (faster than a scatter here)
+    states_t, (flags, vals) = jax.lax.scan(
+        step, st0, (scan_layout(f_all), scan_layout(c_all)))
+    # forward payload order: reverse steps, lanes 3..0; emitted words
+    # scatter to their rank, the rest to an out-of-range slot (dropped)
     flags_f = jnp.transpose(flags, (2, 0, 1))[:, ::-1, ::-1].reshape(n, -1)
     vals_f = jnp.transpose(vals, (2, 0, 1))[:, ::-1, ::-1].reshape(n, -1)
     posn = jnp.cumsum(flags_f, axis=1, dtype=jnp.int32)
-    key = jnp.where(flags_f, posn - 1, c + posn)
-    _, payload = jax.lax.sort_key_val(key, vals_f, dimension=1)
-    n_emit = posn[:, -1]
-    return payload.astype(jnp.uint16), n_emit, states
-
-
-LOG_RANGE1 = 11               # order-1 logRange (ANSRangeEncoder.java:125)
-SCALE1 = 1 << LOG_RANGE1
-
-
-@jax.jit
-def ans1_encode_chunks(chunks: jax.Array, freq: jax.Array, cum: jax.Array):
-    """Order-1 (bigram-context) encode in lockstep — XLA path (CPU mesh,
-    tests; the TPU path is ops/ans_pallas.ans1_encode_chunks_pallas).
-
-    Args:
-      chunks: uint8 [N, C]; lane j encodes quarter j backward, context =
-              previous byte resetting at quarter starts
-              (entropy/ans.py _lane_layout_order1)
-      freq:   int32 [N, 256, 256] per-context normalized freqs (sum = 2048)
-      cum:    int32 [N, 256, 256] exclusive cumulative freqs
-    Returns:
-      payload_u16 [N, C] forward-order compacted; n_emit [N]; states [N, 4]
-    """
-    n, c = chunks.shape
-    q = c // 4
-    fcap = jnp.minimum(freq, SCALE1 - 1)
-    packed = jnp.bitwise_or(fcap, cum << LOG_RANGE1).reshape(n, 65536)
-    sym = chunks.astype(jnp.int32)
-    prev = jnp.roll(sym, 1, axis=1)
-    pos = jax.lax.broadcasted_iota(jnp.int32, (n, c), 1)
-    ctx = jnp.where((pos % q) == 0, 0, prev)
-    lk = jnp.take_along_axis(packed, ctx * 256 + sym, axis=1)   # (N, C)
-    xs = jnp.transpose(lk.reshape(n, 4, q)[:, :, ::-1], (2, 1, 0))  # (q,4,N)
-
-    def step(st, lkt):
-        f = lkt & (SCALE1 - 1)
-        cm = lkt >> LOG_RANGE1
-        em = (st >> 20) >= f          # st >= f << 20 ((ANS_TOP>>11) << 16)
-        val = st & 0xFFFF
-        st1 = jnp.where(em, st >> 16, st)
-        qt = (st1.astype(jnp.float32) / f.astype(jnp.float32)).astype(jnp.int32)
-        r = st1 - qt * f
-        qt = jnp.where(r < 0, qt - 1, jnp.where(r >= f, qt + 1, qt))
-        r = st1 - qt * f
-        st2 = (qt << LOG_RANGE1) + r + cm
-        return st2, (em, val)
-
-    st0 = jnp.full((4, n), ANS_TOP, dtype=jnp.int32)
-    states_t, (flags, vals) = jax.lax.scan(step, st0, xs)
-    # forward payload order: reverse steps, lanes 3..0
-    flags_f = jnp.transpose(flags, (2, 0, 1))[:, ::-1, ::-1].reshape(n, -1)
-    vals_f = jnp.transpose(vals, (2, 0, 1))[:, ::-1, ::-1].reshape(n, -1)
-    posn = jnp.cumsum(flags_f, axis=1, dtype=jnp.int32)
-    key = jnp.where(flags_f, posn - 1, c + posn)
-    _, payload = jax.lax.sort_key_val(key, vals_f, dimension=1)
-    return payload.astype(jnp.uint16), posn[:, -1], states_t.T
+    dest = jnp.where(flags_f, posn - 1, c)
+    rows = jax.lax.broadcasted_iota(jnp.int32, (n, c), 0)
+    payload = jnp.zeros((n, c), jnp.uint16).at[rows, dest].set(
+        vals_f.astype(jnp.uint16), mode="drop")
+    return payload, posn[:, -1], states_t.T
 
 
 @functools.partial(jax.jit, static_argnames=("chunk_size",))
@@ -202,14 +121,3 @@ def ans0_decode_chunks(payload: jax.Array, states: jax.Array,
     # syms: (S, N, 4) with lane order st0..st3; block order = lane3 first
     out = jnp.transpose(syms, (1, 0, 2))[:, :, ::-1].reshape(n, chunk_size)
     return out.astype(jnp.uint8), consumed
-
-
-def encode_block_host(block: np.ndarray, device_batch: int = 0):
-    """Host+device cooperative ANS0 encode of one block; returns the exact
-    wire bytes the numpy encoder would produce (entropy/ans.py)."""
-    from ..core.bits import BitWriter
-    from ..entropy import ans as hans
-    bw = BitWriter()
-    enc = hans.ANSRangeEncoder(bw, 0)
-    enc.encode(block)  # numpy reference path (used for tail/small data)
-    return bw.getvalue()

@@ -1,11 +1,15 @@
-"""Host glue for the TPU ANS0 kernel: produces the exact ANSRangeEncoder
-wire bytes (entropy/ans.py) with the symbol scan + payload packing on device.
+"""Host glue for the device ANS0 lane scan: produces the exact
+ANSRangeEncoder wire bytes (entropy/ans.py) with the symbol scan + payload
+packing on the JAX device (ops/route.py picks the kernel).
 
 Division of labor:
   host:   per-chunk histograms, the reference's exact frequency
           normalization (wire-identical headers), header/varint assembly,
           tail (<16 KiB) chunks
   device: the 4-lane rANS scan over all chunks in lockstep + payload pack
+
+Row counts and payload widths are padded to powers of two, so a stream of
+4 MiB blocks compiles a handful of shapes instead of one per block.
 """
 
 from __future__ import annotations
@@ -17,18 +21,19 @@ from ..core.errors import BitStreamError
 from ..entropy import ans as hans
 from ..entropy import utils as eu
 from . import ans as jans
+from .route import ans0_kernels
 
 CHUNK = jans.CHUNK
 
 
 def _chunk_stats(chunks: np.ndarray):
-    """(freq[N,256], cum[N,256], alphabet sizes) with exact reference
-    normalization per chunk."""
+    """(freq[N,256], cum[N,256], alphabet sizes, alphabets) with exact
+    reference normalization per chunk."""
     n = chunks.shape[0]
-    # per-row histograms; a row loop beats one big offset-id bincount here
-    # because it avoids a (n, CHUNK) temporary (slow first-touch on this host)
+    # per-row histograms; a row loop avoids a (n, CHUNK) temporary
     hist = np.stack([np.bincount(r, minlength=256) for r in chunks])
-    freq = eu.normalize_frequencies_batch(hist, CHUNK, 1 << jans.LOG_RANGE)
+    freq = eu.normalize_frequencies_batch(hist, chunks.shape[1],
+                                          1 << jans.LOG_RANGE)
     nz = hist > 0
     nsym = nz.sum(axis=1)
     alphabets = [np.flatnonzero(nz[i]).astype(np.int32) for i in range(n)]
@@ -37,15 +42,20 @@ def _chunk_stats(chunks: np.ndarray):
     return freq, cum, nsym, alphabets
 
 
-def _encode_kernel():
-    """Kernel selection: the Pallas path on TPU (exact division in-kernel);
-    the XLA lax.scan path elsewhere (CPU mesh, tests).  XLA's f32 divide is
-    lowered to an approximate reciprocal on TPU and is NOT exact there."""
-    import jax
-    if jax.default_backend() == "tpu":
-        from .ans_pallas import ans0_encode_chunks_pallas
-        return ans0_encode_chunks_pallas
-    return jans.ans0_encode_chunks
+def bucket(n: int, lo: int) -> int:
+    """Smallest power of two >= max(n, lo)."""
+    return max(lo, 1 << max(n - 1, 0).bit_length())
+
+
+def pad_tables(freq: np.ndarray, cum: np.ndarray, rows: int):
+    """int32 (freq, cum) padded to ``rows``; pad rows hold a valid
+    one-symbol table (freq[0] = 4096), so the kernels never divide by 0."""
+    f = np.zeros((rows, 256), np.int32)
+    f[:, 0] = jans.SCALE
+    f[:len(freq)] = freq
+    c = np.zeros((rows, 256), np.int32)
+    c[:len(cum)] = cum
+    return f, c
 
 
 def assemble_ans0_wire(bw: BitWriter, freq: np.ndarray, nsym: np.ndarray,
@@ -71,7 +81,8 @@ def assemble_ans0_wire(bw: BitWriter, freq: np.ndarray, nsym: np.ndarray,
 
 
 def ans0_encode(block: np.ndarray, bw: BitWriter) -> int:
-    """Drop-in for ANSRangeEncoder(order=0).encode with the scan on TPU."""
+    """Drop-in for ANSRangeEncoder(order=0).encode with the scan on the
+    JAX device."""
     import jax.numpy as jnp
     block = np.asarray(block, dtype=np.uint8)
     count = block.size
@@ -81,38 +92,20 @@ def ans0_encode(block: np.ndarray, bw: BitWriter) -> int:
     nfull = count // CHUNK
     tail = count - nfull * CHUNK
     if nfull > 0:
-        import jax
         chunks = block[:nfull * CHUNK].reshape(nfull, CHUNK)
-        if jax.default_backend() == "tpu":
-            # fully device-resident: histogram + normalization + scan + pack
-            from .ans_pallas import ans0_encode_device
-            freq_d, pay_d, ne_d, st_d = ans0_encode_device(jnp.asarray(chunks))
-            freq = np.asarray(freq_d).astype(np.int64)
-            n_emit = np.asarray(ne_d)
-            states = np.asarray(st_d)
-            nz = freq > 0
-            nsym = nz.sum(axis=1)
-            alphabets = [np.flatnonzero(nz[i]).astype(np.int32)
-                         for i in range(nfull)]
-            # fetch only the populated payload prefix (bucketed width to
-            # bound recompiles)
-            mw = int(n_emit.max(initial=0))
-            mw = 1 << max(mw - 1, 1).bit_length()
-            payload = np.asarray(pay_d[:, :min(mw, CHUNK)])
-            rowmap = np.arange(nfull)
-        else:
-            freq, cum, nsym, alphabets = _chunk_stats(chunks)
-            sel = np.flatnonzero(nsym > 1)
-            rowmap = np.full(nfull, -1)
-            rowmap[sel] = np.arange(sel.size)
-            if sel.size:
-                payload, n_emit, states = _encode_kernel()(
-                    jnp.asarray(chunks[sel]),
-                    jnp.asarray(freq[sel], dtype=jnp.int32),
-                    jnp.asarray(cum[sel], dtype=jnp.int32))
-                payload = np.asarray(payload)
-                n_emit = np.asarray(n_emit)
-                states = np.asarray(states)
+        freq, cum, nsym, alphabets = _chunk_stats(chunks)
+        sel = np.flatnonzero(nsym > 1)
+        rowmap = np.full(nfull, -1)
+        rowmap[sel] = np.arange(sel.size)
+        payload = n_emit = states = None
+        if sel.size:
+            rows = bucket(sel.size, 8)
+            ch = np.zeros((rows, CHUNK), np.uint8)
+            ch[:sel.size] = chunks[sel]
+            fr, cm = pad_tables(freq[sel], cum[sel], rows)
+            out = ans0_kernels().encode(jnp.asarray(ch), jnp.asarray(fr),
+                                        jnp.asarray(cm))
+            payload, n_emit, states = (np.asarray(x) for x in out)
         assemble_ans0_wire(bw, freq, nsym, alphabets, n_emit, states,
                            payload, rowmap)
     if tail:
@@ -121,81 +114,9 @@ def ans0_encode(block: np.ndarray, bw: BitWriter) -> int:
     return count
 
 
-CHUNK1 = CHUNK << 8  # 4 MiB order-1 wire chunks (ANSRangeEncoder.java:126)
-
-
-def ans1_encode(block: np.ndarray, bw: BitWriter) -> int:
-    """Drop-in for ANSRangeEncoder(order=1).encode with the scan on device.
-
-    Host: per-chunk order-1 context histograms + exact per-row reference
-    normalization (wire-identical headers) + bitstream assembly.
-    Device: bigram table lookup + the 4-lane rANS scan + payload compaction
-    (Pallas on TPU, XLA elsewhere).
-    """
-    import jax
-    import jax.numpy as jnp
-    block = np.asarray(block, dtype=np.uint8)
-    count = block.size
-    if count <= 32:
-        bw.write_bytes(block.tobytes())
-        return count
-    nfull = count // CHUNK1
-    tail = count - nfull * CHUNK1
-    if nfull > 0:
-        chunks = block[:nfull * CHUNK1].reshape(nfull, CHUNK1)
-        scale = 1 << jans.LOG_RANGE1
-        freq = np.zeros((nfull, 256, 256), dtype=np.int64)
-        for i in range(nfull):
-            h2 = hans._order1_histogram(chunks[i].astype(np.int64))
-            freq[i] = eu.normalize_frequencies_batch(
-                h2, h2.sum(axis=1), scale)
-        cum = np.concatenate(
-            [np.zeros((nfull, 256, 1), dtype=np.int64),
-             np.cumsum(freq, axis=2)[:, :, :-1]], axis=2)
-        on_tpu = jax.default_backend() == "tpu"
-        if on_tpu:
-            from .ans_pallas import ans1_encode_chunks_pallas
-            pay_d, cnt_d, st_d = ans1_encode_chunks_pallas(
-                jnp.asarray(chunks), jnp.asarray(freq, jnp.int32),
-                jnp.asarray(cum, jnp.int32))
-            payload = np.asarray(pay_d)
-            tile_counts = np.asarray(cnt_d)     # (N, CHUNK1//CHUNK, 128)
-            states = np.asarray(st_d)
-        else:
-            pay_d, ne_d, st_d = jans.ans1_encode_chunks(
-                jnp.asarray(chunks), jnp.asarray(freq, jnp.int32),
-                jnp.asarray(cum, jnp.int32))
-            payload = np.asarray(pay_d)
-            n_emit = np.asarray(ne_d)
-            states = np.asarray(st_d)
-        for i in range(nfull):
-            bw.write_bits(jans.LOG_RANGE1 - 8, 3)
-            for k in range(256):
-                alpha = np.flatnonzero(freq[i, k]).astype(np.int32)
-                hans._write_freqs_header(bw, alpha, freq[i, k],
-                                         jans.LOG_RANGE1)
-            if on_tpu:
-                # stitch per-16KiB-tile payload prefixes in tile order
-                parts = []
-                for t in range(CHUNK1 // CHUNK):
-                    nw = int(tile_counts[i, t].sum())
-                    parts.append(payload[i, t * CHUNK:t * CHUNK + nw])
-                words = np.concatenate(parts)
-            else:
-                words = payload[i, :int(n_emit[i])]
-            pay = words.astype(">u2").tobytes()
-            eu.write_varint(bw, len(pay))
-            for j in range(4):
-                bw.write_bits(int(states[i, j]), 32)
-            bw.write_bytes(pay)
-    if tail:
-        enc = hans.ANSRangeEncoder(bw, 1)
-        enc._encode_chunk(block[nfull * CHUNK1:], bw)
-    return count
-
-
 def ans0_decode(count: int, br: BitReader) -> np.ndarray:
-    """Drop-in for ANSRangeDecoder(order=0).decode with the scan on TPU."""
+    """Drop-in for ANSRangeDecoder(order=0).decode with the scan on the
+    JAX device."""
     import jax.numpy as jnp
     if count <= 32:
         return br.read_bytes(count)
@@ -228,29 +149,26 @@ def ans0_decode(count: int, br: BitReader) -> np.ndarray:
         metas.append((i * CHUNK, freqs, states, pay))
     full = [m for m in metas if len(m) == 4]
     if full:
-        maxp = max(len(m[3]) for m in full) + 8
-        pay = np.zeros((len(full), maxp), dtype=np.uint8)
+        rows = bucket(len(full), 8)
+        maxp = bucket(max(len(m[3]) for m in full) + 8, 256)
+        pay = np.zeros((rows, maxp), dtype=np.uint8)
         freq = np.zeros((len(full), 256), dtype=np.int64)
-        states = np.zeros((len(full), 4), dtype=np.int64)
+        states = np.full((rows, 4), jans.ANS_TOP, dtype=np.int64)
         for k, m in enumerate(full):
             pay[k, :len(m[3])] = m[3]
             freq[k] = m[1]
             states[k] = m[2]
         cum = np.concatenate([np.zeros((len(full), 1), dtype=np.int64),
                               np.cumsum(freq, axis=1)[:, :-1]], axis=1)
-        import jax
-        if jax.default_backend() == "tpu":
-            from .ans_pallas import ans0_decode_chunks_pallas as _dec
-        else:
-            _dec = jans.ans0_decode_chunks
-        res, consumed = _dec(
-            jnp.asarray(pay), jnp.asarray(states, dtype=jnp.int32),
-            jnp.asarray(freq, dtype=jnp.int32), jnp.asarray(cum, dtype=jnp.int32))
+        fr, cm = pad_tables(freq, cum, rows)
+        res, consumed = ans0_kernels().decode(
+            jnp.asarray(pay), jnp.asarray(states.astype(np.int32)),
+            jnp.asarray(fr), jnp.asarray(cm))
         res = np.asarray(res)
         consumed = np.asarray(consumed)
         for k, m in enumerate(full):
             if int(consumed[k]) != len(m[3]):
-                raise BitStreamError("ANS payload size mismatch (TPU decode)",
+                raise BitStreamError("ANS payload size mismatch (device decode)",
                                      BitStreamError.INVALID_STREAM)
             out[m[0]:m[0] + CHUNK] = res[k]
     for m in metas:

@@ -1,17 +1,17 @@
 """Multi-host (multi-process) mesh dryrun — the SURVEY §2.9 north-star
-contract made executable without TPU pods.
+contract made executable on one machine.
 
 The reference has no network layer at all (its only parallelism is a
-shared-memory thread pool, K/app/BlockCompressor.java:206); the TPU-native
+shared-memory thread pool, K/app/BlockCompressor.java:206); the mesh
 equivalent prescribed by SURVEY §2.9 is: ``jax.distributed`` + a mesh
 spanning every host's devices; the codec config (stream-header fields) is
 known to all hosts; per-block (length, payload) pairs are all-gathered in
-block order over ICI/DCN; host 0 serializes the bitstream.
+block order over the interconnect; host 0 serializes the bitstream.
 
 This module proves that contract on CPU: two OS processes, each owning 4
 virtual XLA:CPU devices, form one 8-device mesh.  The ANS0 entropy stage
-(level 5's stage 2, the same jitted pipeline the single-process mesh path
-uses — parallel/engine.make_pipeline_step) runs sharded across BOTH
+(level 5's stage 2, the same jitted scan the single-process mesh path
+uses — parallel/engine.make_encode_step) runs sharded across BOTH
 processes; per-chunk payload lengths ride a cross-process all_gather;
 payload shards are brought to every host with process_allgather; process 0
 assembles the exact ANSRangeEncoder wire and verifies it decodes
@@ -35,9 +35,8 @@ def worker_main(process_id: int, num_processes: int, coordinator: str,
                 out_path: str | None) -> None:
     import jax
 
-    # fresh process, backend not yet initialized: pin the CPU platform and
-    # local device count BEFORE distributed init (the parent strips the
-    # TPU-plugin env vars so no other platform can win the default)
+    # fresh process, backend not yet initialized: pin the CPU platform
+    # BEFORE distributed init, so these workers never open an accelerator
     jax.config.update("jax_platforms", "cpu")
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=num_processes,
@@ -50,9 +49,9 @@ def worker_main(process_id: int, num_processes: int, coordinator: str,
 
     from ..core.bits import BitWriter
     from ..entropy import ans as hans
-    from ..ops.ans_block import assemble_ans0_wire
+    from ..ops.ans_block import _chunk_stats, assemble_ans0_wire
     from ..utils.corpus import mixed_corpus
-    from .engine import make_pipeline_step
+    from .engine import make_encode_step
 
     devs = jax.devices()
     ndev = len(devs)
@@ -75,9 +74,13 @@ def worker_main(process_id: int, num_processes: int, coordinator: str,
                         (process_id + 1) * rows_per_proc]
     garr = jax.make_array_from_process_local_data(sharding, local_rows,
                                                   chunks.shape)
+    # histograms + exact normalization on each host for its own rows
+    freq, cum, nsym, alphabets = _chunk_stats(chunks)
+    lo, hi = process_id * rows_per_proc, (process_id + 1) * rows_per_proc
+    gfreq, gcum = (jax.make_array_from_process_local_data(
+        sharding, x[lo:hi].astype(np.int32), x.shape) for x in (freq, cum))
 
-    step = make_pipeline_step(mesh, chunk)
-    freq_d, pay_d, len_d, st_d = step(garr)
+    pay_d, len_d, st_d = make_encode_step(mesh)(garr, gfreq, gcum)
 
     # per-chunk payload lengths are ALL-GATHERED inside the step (the
     # ordered-commit metadata riding the collective): replicated output,
@@ -86,9 +89,8 @@ def worker_main(process_id: int, num_processes: int, coordinator: str,
         [s.data for s in len_d.addressable_shards][0]))
     assert lengths.shape == (nblocks,), lengths.shape
 
-    # bring the sharded payloads/tables to every host (DCN analogue of the
+    # bring the sharded payloads to every host (the cross-host form of the
     # ordered variable-length gather); block order is the row order
-    freq = np.asarray(mhu.process_allgather(freq_d, tiled=True))
     payload = np.asarray(mhu.process_allgather(pay_d, tiled=True))
     states = np.asarray(mhu.process_allgather(st_d, tiled=True))
 
@@ -98,13 +100,8 @@ def worker_main(process_id: int, num_processes: int, coordinator: str,
         if process_id == 0:
             # host 0 serializes the bitstream in block order
             bw = BitWriter()
-            f64 = freq.astype(np.int64)
-            nz = f64 > 0
-            alphabets = [np.flatnonzero(nz[i]).astype(np.int32)
-                         for i in range(nblocks)]
-            assemble_ans0_wire(bw, f64, nz.sum(axis=1), alphabets,
-                               lengths, states, payload,
-                               np.arange(nblocks))
+            assemble_ans0_wire(bw, freq, nsym, alphabets, lengths, states,
+                               payload, np.arange(nblocks))
             wire = bw.getvalue()
             # byte-exact vs the single-process host encoder on the same data
             hw = BitWriter()

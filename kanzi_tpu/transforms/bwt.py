@@ -13,8 +13,8 @@ Block codec header: mode byte (log2(chunks) << 2 | pIndexSize-1) followed by
 chunks primary indexes of pIndexSize bytes each (big-endian, value-1).
 
 The suffix array comes from the C++ SA-IS kernel; the fallback is a numpy
-prefix-doubling SA (O(n log^2 n) sorts) — the same construction the TPU
-kernel uses (ops/bwt.py).
+prefix-doubling SA (O(n log^2 n) sorts) — the same construction the device
+gate uses (ops/bwt_tpu.py).
 """
 
 from __future__ import annotations
@@ -114,19 +114,11 @@ class BWT:
                                               chunks)
         import os
         if os.environ.get("KANZI_TPU_DEVICE_BWT", "0") == "1" and n >= 65536:
-            try:
-                import jax
-                use_dev = (jax.default_backend() == "tpu"
-                           or os.environ.get("KANZI_TPU_PALLAS_INTERPRET")
-                           == "1")
-            except Exception:
-                use_dev = False
-            if use_dev:
-                # prefix-doubling SA on the chip (ops/bwt_tpu); any correct
-                # SA yields the identical BWT, so the wire is unchanged
-                from ..ops.bwt_tpu import suffix_array_device
-                sa = suffix_array_device(src).astype(np.int64)
-                return self._assemble_forward(src, sa, chunks)
+            # prefix-doubling SA on the JAX device (ops/bwt_tpu); any
+            # correct SA yields the identical BWT, so the wire is unchanged
+            from ..ops.bwt_tpu import suffix_array_device
+            sa = suffix_array_device(src).astype(np.int64)
+            return self._assemble_forward(src, sa, chunks)
         # leftover thread budget from the encode task (1 when blocks
         # already saturate the cores, more when a lone block has the
         # machine to itself) threads the SA's data-parallel phases
@@ -177,7 +169,7 @@ class BWT:
 
     def _inverse_numpy(self, src: np.ndarray, chunks: int) -> np.ndarray:
         """mergeTPSI with vectorized table construction and log-doubling
-        chain walk (numpy fallback; also the TPU kernel's dataflow)."""
+        chain walk (numpy fallback)."""
         n = src.size
         p_idx = self.primary_indexes[0]
         if p_idx <= 0 or p_idx > n:

@@ -1,8 +1,8 @@
 // rANS order-0/1 codec, byte-exact with kanzi_tpu/entropy/ans.py (and the
 // reference wire format K/entropy/ANSRangeEncoder.java / ANSRangeDecoder.java).
 // Produces/consumes an MSB-first bit image so the Python layer can splice it
-// at any bit offset.  This is the host-side fast path; the TPU kernel
-// (kanzi_tpu/ops/ans.py) covers the device path.
+// at any bit offset.  This is the host-side fast path; the device path is
+// kanzi_tpu/ops/ans.py (XLA) and native/ans_cuda.cu (CUDA).
 
 #include <cstdint>
 #include <cstring>

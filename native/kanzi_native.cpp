@@ -1,7 +1,8 @@
 // kanzi_tpu native runtime kernels (host side).
 //
-// The TPU compute path lives in JAX/Pallas; this library provides the
-// host-side serial kernels that are irreducibly sequential per chunk
+// The device compute path lives in JAX (and native/ans_cuda.cu); this
+// library provides the host-side serial kernels that are irreducibly
+// sequential per chunk
 // (hashes, adaptive binary coders) plus fast helpers for the block engine.
 // Exposed as a plain C ABI consumed through ctypes.
 //

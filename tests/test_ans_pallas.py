@@ -1,9 +1,8 @@
-"""Tests for the Pallas rANS kernels (ops/ans_pallas.py) and the batched
-frequency normalization.
-
-The Pallas kernels need a real TPU (Mosaic does not target CPU), so those
-tests are skipped under the CPU test mesh; the numpy-vs-scalar normalization
-equivalence and the exact-integer oracle construction run everywhere.
+"""Tests for the device rANS order-0 lane scan: the XLA scan (ops/ans.py),
+the CUDA kernel (ops/ans_cuda.py, ``gpu`` marker), the host glue around
+them (ops/ans_block.py, ops/route.py) and the batched frequency
+normalization.  Every device result is compared with the exact-integer
+numpy oracle (ops/ans_oracle.py) with tolerance 0.
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ import pytest
 
 from kanzi_tpu.entropy.utils import (normalize_frequencies,
                                      normalize_frequencies_batch)
+from kanzi_tpu.ops.ans_oracle import ans0_encode_oracle, payload_bytes
 
 CHUNK = 16384
 SCALE = 4096
@@ -29,6 +29,39 @@ def _random_hists(n: int, seed: int = 0) -> np.ndarray:
         h[syms] = 1 + rng.multinomial(CHUNK - k, w / w.sum())
         hists.append(h)
     return np.array(hists)
+
+
+def _zipf_chunks(n: int, seed: int, a: float = 1.3, mod: int = 200):
+    """Zipf-ish chunks (emits at varying densities) + their exact tables."""
+    from kanzi_tpu.ops.ans_block import _chunk_stats
+    rng = np.random.default_rng(seed)
+    chunks = (rng.zipf(a, (n, CHUNK)) % mod).astype(np.uint8)
+    freq, cum, _, _ = _chunk_stats(chunks)
+    return chunks, freq, cum
+
+
+def _check_encode(encode, chunks, freq, cum):
+    import jax.numpy as jnp
+    po, no, so = ans0_encode_oracle(chunks, freq, cum)
+    p, ne, st = (np.asarray(x) for x in encode(
+        jnp.asarray(chunks), jnp.asarray(freq, jnp.int32),
+        jnp.asarray(cum, jnp.int32)))
+    assert np.array_equal(ne, no)
+    assert np.array_equal(st.astype(np.int64), so)
+    for i in range(len(chunks)):
+        assert np.array_equal(p[i, :no[i]], po[i, :no[i]])
+    return po, no, so
+
+
+def _check_decode(decode, chunks, freq, cum, po, no, so):
+    import jax.numpy as jnp
+    width = ((int(no.max()) * 2 + 130) // 128 + 2) * 128
+    out, used = decode(jnp.asarray(payload_bytes(po, no, width)),
+                       jnp.asarray(so, jnp.int32),
+                       jnp.asarray(freq, jnp.int32),
+                       jnp.asarray(cum, jnp.int32))
+    assert np.array_equal(np.asarray(out), chunks)
+    assert np.array_equal(np.asarray(used), no * 2)
 
 
 def test_normalize_batch_matches_scalar():
@@ -50,200 +83,79 @@ def test_normalize_batch_irregular_rows():
         assert np.array_equal(f, batch[i])
 
 
-def _ans0_oracle(chunks: np.ndarray, freq: np.ndarray, cum: np.ndarray):
-    """Exact-integer reference of the 4-state interleaved rANS scan
-    (ANSRangeEncoder.java:337-407 semantics)."""
-    n, c = chunks.shape
-    s = c // 4
-    fcap = np.minimum(freq, SCALE - 1).astype(np.int64)
-    g = chunks.reshape(n, s, 4).astype(np.int64)
-    syms = g[:, ::-1, ::-1]
-    st = np.full((4, n), 1 << 15, np.int64)
-    flags = np.zeros((s, 4, n), bool)
-    vals = np.zeros((s, 4, n), np.int64)
-    rows = np.arange(n)[None, :]
-    for i in range(s):
-        sym = syms[:, i, :].T
-        f = fcap[rows, sym]
-        cm = cum[rows, sym].astype(np.int64)
-        em = (st >> 19) >= f
-        vals[i] = st & 0xFFFF
-        flags[i] = em
-        st1 = np.where(em, st >> 16, st)
-        q = st1 // f
-        st = (q << 12) + (st1 - q * f) + cm
-    flags_f = flags.transpose(2, 0, 1)[:, ::-1, ::-1].reshape(n, -1)
-    vals_f = vals.transpose(2, 0, 1)[:, ::-1, ::-1].reshape(n, -1)
-    n_emit = flags_f.sum(1)
-    pay = np.zeros((n, c), np.uint16)
-    for i in range(n):
-        pay[i, :n_emit[i]] = vals_f[i][flags_f[i]].astype(np.uint16)
-    return pay, n_emit, st.T
-
-
-def _on_tpu() -> bool:
-    try:
-        import jax
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
-@pytest.mark.skipif(not _on_tpu(), reason="Pallas kernels need a TPU")
 @pytest.mark.parametrize("n", [32, 45])
-def test_pallas_encode_matches_oracle(n):
+def test_xla_encode_matches_oracle(n):
+    from kanzi_tpu.ops.ans import ans0_encode_chunks
+    _check_encode(ans0_encode_chunks, *_zipf_chunks(n, seed=7))
+
+
+def test_xla_decode_inverts_encode():
+    from kanzi_tpu.ops.ans import ans0_decode_chunks, ans0_encode_chunks
+    chunks, freq, cum = _zipf_chunks(24, seed=5, a=1.4, mod=230)
+    res = _check_encode(ans0_encode_chunks, chunks, freq, cum)
+    _check_decode(ans0_decode_chunks, chunks, freq, cum, *res)
+
+
+def test_route_picks_xla_on_cpu():
+    from kanzi_tpu.ops import ans, route
+    k = route.ans0_kernels()
+    assert k.name == "xla"
+    assert k.encode is ans.ans0_encode_chunks
+    assert k.decode is ans.ans0_decode_chunks
+
+
+def test_host_padding_and_shapes():
+    """Rows and payload widths bucket to powers of two; pad rows carry a
+    valid one-symbol table; the CUDA results have the XLA shapes."""
     import jax.numpy as jnp
-    from kanzi_tpu.ops.ans_block import _chunk_stats
-    from kanzi_tpu.ops.ans_pallas import ans0_encode_chunks_pallas
 
-    rng = np.random.default_rng(7)
-    # zipf-ish data exercises emits at varying densities
-    chunks = (rng.zipf(1.3, (n, CHUNK)) % 200).astype(np.uint8)
-    freq, cum, nsym, _ = _chunk_stats(chunks)
-    po, no, so = _ans0_oracle(chunks, freq, cum)
-    p, ne, st = ans0_encode_chunks_pallas(
-        jnp.asarray(chunks), jnp.asarray(freq, jnp.int32),
-        jnp.asarray(cum, jnp.int32))
-    p, ne, st = np.asarray(p), np.asarray(ne), np.asarray(st)
-    assert np.array_equal(ne, no)
-    assert np.array_equal(st.astype(np.int64), so)
-    for i in range(n):
-        assert np.array_equal(p[i, :no[i]], po[i, :no[i]])
-
-
-@pytest.mark.skipif(not _on_tpu(), reason="Pallas kernels need a TPU")
-@pytest.mark.parametrize("n", [32, 45])
-def test_pallas_fused_encode_matches_oracle(n):
-    import jax.numpy as jnp
-    from kanzi_tpu.ops.ans_block import _chunk_stats
-    from kanzi_tpu.ops.ans_pallas import ans0_encode_chunks_fused
-
-    rng = np.random.default_rng(11)
-    chunks = (rng.zipf(1.3, (n, CHUNK)) % 200).astype(np.uint8)
-    freq, cum, nsym, _ = _chunk_stats(chunks)
-    po, no, so = _ans0_oracle(chunks, freq, cum)
-    p, ne, st = ans0_encode_chunks_fused(
-        jnp.asarray(chunks), jnp.asarray(freq, jnp.int32),
-        jnp.asarray(cum, jnp.int32))
-    p, ne, st = np.asarray(p), np.asarray(ne), np.asarray(st)
-    assert np.array_equal(ne, no)
-    assert np.array_equal(st.astype(np.int64), so)
-    for i in range(n):
-        assert np.array_equal(p[i, :no[i]], po[i, :no[i]])
+    from kanzi_tpu.ops.ans_block import bucket, pad_tables
+    from kanzi_tpu.ops.ans_cuda import decode_result_types, encode_result_types
+    assert [bucket(n, 8) for n in (0, 1, 8, 9, 255, 256, 257)] == \
+        [8, 8, 8, 16, 256, 256, 512]
+    assert bucket(16394, 256) == 32768
+    freq = np.full((3, 256), 16, np.int64)
+    cum = np.cumsum(freq, axis=1) - freq
+    fr, cm = pad_tables(freq, cum, 8)
+    assert fr.dtype == cm.dtype == np.int32 and fr.shape == cm.shape == (8, 256)
+    assert np.array_equal(fr[:3], freq) and np.array_equal(cm[:3], cum)
+    assert (fr[3:].sum(axis=1) == SCALE).all() and (fr[3:, 0] == SCALE).all()
+    assert not cm[3:].any()
+    assert [(t.shape, t.dtype) for t in encode_result_types(8, CHUNK)] == [
+        ((8, CHUNK), jnp.uint16), ((8,), jnp.int32), ((8, 4), jnp.int32)]
+    assert [(t.shape, t.dtype) for t in decode_result_types(8, CHUNK)] == [
+        ((8, CHUNK), jnp.uint8), ((8,), jnp.int32)]
 
 
-@pytest.mark.skipif(not _on_tpu(), reason="Pallas kernels need a TPU")
-def test_pallas_compact_all_rates():
-    import jax.numpy as jnp
-    from kanzi_tpu.ops.ans_pallas import _compact
+def test_cuda_build_command_targets_hopper():
+    import jax.ffi
 
-    rng = np.random.default_rng(0)
-    n = 16
-    for rate in (0.0, 0.25, 0.75, 1.0):
-        flag = (rng.random((n, CHUNK)) < rate).astype(np.int32)
-        val = rng.integers(0, 65536, (n, CHUNK)).astype(np.int32)
-        pay, cnt = _compact(jnp.asarray(((flag << 16) | val)
-                                        .reshape(n, 128, 128)))
-        pay = np.asarray(pay).reshape(n, CHUNK)
-        assert np.array_equal(np.asarray(cnt).sum(1), flag.sum(1))
-        for i in range(n):
-            want = val[i][flag[i] == 1]
-            assert np.array_equal(pay[i, :want.size], want)
+    from kanzi_tpu.utils.native import cuda_build_command
+    cmd = cuda_build_command()
+    assert cmd[0].endswith("nvcc")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert jax.ffi.include_dir() in cmd
+    assert cmd[-1].endswith("native/ans_cuda.cu")
 
 
-@pytest.mark.skipif(not _on_tpu(), reason="Pallas kernels need a TPU")
-def test_pallas_decode_inverts_encode():
-    import jax.numpy as jnp
-    from kanzi_tpu.ops.ans_block import _chunk_stats
-    from kanzi_tpu.ops.ans_pallas import (ans0_decode_chunks_pallas,
-                                          ans0_encode_chunks_pallas)
-
-    rng = np.random.default_rng(5)
-    n = 48
-    chunks = (rng.zipf(1.4, (n, CHUNK)) % 230).astype(np.uint8)
-    freq, cum, nsym, _ = _chunk_stats(chunks)
-    p, ne, st = ans0_encode_chunks_pallas(
-        jnp.asarray(chunks), jnp.asarray(freq, jnp.int32),
-        jnp.asarray(cum, jnp.int32))
-    p, ne, st = np.asarray(p), np.asarray(ne), np.asarray(st)
-    maxb = ((int(ne.max()) * 2 + 130) // 128 + 2) * 128
-    pay = np.zeros((n, maxb), np.uint8)
-    for i in range(n):
-        pay[i, :ne[i] * 2] = p[i, :ne[i]].astype(">u2").view(np.uint8)
-    out, used = ans0_decode_chunks_pallas(
-        jnp.asarray(pay), jnp.asarray(st, jnp.int32),
-        jnp.asarray(freq, jnp.int32), jnp.asarray(cum, jnp.int32))
-    assert np.array_equal(np.asarray(out), chunks)
-    assert np.array_equal(np.asarray(used), ne * 2)
-
-
-@pytest.mark.skipif(not _on_tpu(), reason="Pallas kernels need a TPU")
-def test_huffman_device_bit_exact():
-    import os
+def test_ans_block_wire_matches_host_encoder():
+    """The device-glue wire (XLA scan on the CPU) equals the host
+    ANSRangeEncoder(order=0) bytes — incl. a single-symbol chunk and a
+    tail — and decodes back through the device decode route."""
     from kanzi_tpu.core.bits import BitReader, BitWriter
-    from kanzi_tpu.entropy.huffman import HuffmanDecoder, HuffmanEncoder
+    from kanzi_tpu.entropy.ans import ANSRangeEncoder
+    from kanzi_tpu.ops.ans_block import ans0_decode, ans0_encode
 
-    rng = np.random.default_rng(11)
-    data = (rng.zipf(1.5, 12 * CHUNK + 77) % 240).astype(np.uint8)
-    bw1 = BitWriter()
-    e1 = HuffmanEncoder(bw1)
-    e1._encode_full_chunks_tpu = lambda b, w: 0   # force host path
-    e1.encode(data.copy())
-    os.environ["KANZI_TPU_DEVICE_HUFFMAN"] = "1"
-    try:
-        bw2 = BitWriter()
-        HuffmanEncoder(bw2).encode(data.copy())
-    finally:
-        os.environ.pop("KANZI_TPU_DEVICE_HUFFMAN", None)
-    assert bw1.getvalue() == bw2.getvalue()
-    out = HuffmanDecoder(BitReader(bw2.getvalue())).decode(len(data))
-    assert np.array_equal(np.asarray(out, np.uint8), data)
-
-
-@pytest.mark.skipif(not _on_tpu(), reason="Pallas kernels need a TPU")
-def test_ans_codec_device_gate_round_trip(monkeypatch):
-    import numpy as _np
-    from kanzi_tpu.core.bits import BitReader, BitWriter
-    from kanzi_tpu.entropy.ans import ANSRangeDecoder, ANSRangeEncoder
-
-    monkeypatch.setenv("KANZI_TPU_DEVICE_ANS", "1")
-    rng = _np.random.default_rng(23)
-    data = (rng.zipf(1.4, 9 * CHUNK + 777) % 230).astype(_np.uint8)
+    rng = np.random.default_rng(1)
+    data = (rng.zipf(1.5, 9 * CHUNK + 333) % 251).astype(np.uint8)
+    data[2 * CHUNK:3 * CHUNK] = 17
     bw = BitWriter()
-    enc = ANSRangeEncoder(bw, order=0)
-    enc.encode(data)
-    enc.dispose()
-    dec = ANSRangeDecoder(BitReader(_np.frombuffer(bw.getvalue(), _np.uint8)),
-                          order=0)
-    assert dec._device_decode_ok(len(data))
-    out = dec.decode(len(data))
-    assert _np.array_equal(out, data)
-
-
-@pytest.mark.skipif(not _on_tpu(), reason="Pallas kernels need a TPU")
-def test_huffman_device_decode_round_trip():
-    import os
-    from kanzi_tpu.core.bits import BitReader, BitWriter
-    from kanzi_tpu.entropy.huffman import HuffmanDecoder, HuffmanEncoder
-
-    rng = np.random.default_rng(17)
-    for data in (
-        (rng.zipf(1.3, 5 * CHUNK + 1000) % 251).astype(np.uint8),
-        np.clip(rng.normal(100, 3, 3 * CHUNK), 0, 255).astype(np.uint8),
-    ):
-        bw = BitWriter()
-        enc = HuffmanEncoder(bw)
-        enc.encode(data.copy())
-        enc.dispose()
-        blob = bw.getvalue()
-        host = HuffmanDecoder(BitReader(blob)).decode(len(data))
-        os.environ["KANZI_TPU_DEVICE_HUFFMAN"] = "1"
-        try:
-            dev = HuffmanDecoder(BitReader(blob)).decode(len(data))
-        finally:
-            os.environ.pop("KANZI_TPU_DEVICE_HUFFMAN", None)
-        assert np.array_equal(np.asarray(host, np.uint8), data)
-        assert np.array_equal(np.asarray(dev, np.uint8), data)
+    ans0_encode(data.copy(), bw)
+    bw2 = BitWriter()
+    ANSRangeEncoder(bw2, 0).encode(data.copy())
+    assert bw.getvalue() == bw2.getvalue()
+    out = ans0_decode(data.size, BitReader(bw.getvalue()))
+    assert np.array_equal(np.asarray(out, np.uint8), data)
 
 
 def test_huffman_native_tables_match_python():
@@ -280,105 +192,6 @@ def test_huffman_native_tables_match_python():
         assert np.array_equal(codes, c[i]), f"codes row {i}"
 
 
-@pytest.mark.skipif(not _on_tpu(), reason="Pallas kernels need a TPU")
-def test_pallas_wire_round_trip():
-    from kanzi_tpu.core.bits import BitReader, BitWriter
-    from kanzi_tpu.entropy.ans import ANSRangeDecoder
-    from kanzi_tpu.ops.ans_block import ans0_encode
-
-    rng = np.random.default_rng(1)
-    data = (rng.zipf(1.5, 40 * CHUNK + 333) % 251).astype(np.uint8)
-    bw = BitWriter()
-    ans0_encode(data.copy(), bw)
-    br = BitReader(bw.getvalue())
-    out = ANSRangeDecoder(br, 0).decode(len(data))
-    assert np.array_equal(np.asarray(out, np.uint8), data)
-
-
-@pytest.mark.skipif(not _on_tpu(), reason="Pallas kernels need a TPU")
-def test_ans1_device_matches_host_wire():
-    """Device order-1 encode (MXU bigram lookup + lr=11 scan + tile compact)
-    assembled into wire bytes must equal the host ANSRangeEncoder output."""
-    from kanzi_tpu.core.bits import BitWriter
-    from kanzi_tpu.entropy import utils as eu
-    from kanzi_tpu.entropy.ans import (ANSRangeEncoder, _order1_histogram,
-                                       _write_freqs_header)
-    from kanzi_tpu.ops.ans_pallas import CHUNK, CHUNK1, LOG_RANGE1, \
-        ans1_encode_chunks_pallas
-    import jax.numpy as jnp
-
-    rng = np.random.default_rng(4)
-    # markov-ish data so contexts matter
-    base = (rng.zipf(1.3, CHUNK1) % 61).astype(np.uint8)
-    data = np.convolve(base, np.ones(3), "same").astype(np.uint8) % 67
-
-    # host-side per-context tables (mirrors _encode_chunk order-1 prep)
-    scale = 1 << LOG_RANGE1
-    hist2 = _order1_histogram(data.astype(np.int64))
-    freq = np.zeros((256, 256), dtype=np.int64)
-    alphas = []
-    for k in range(256):
-        fk = hist2[k].copy()
-        alpha = eu.normalize_frequencies(fk, int(hist2[k].sum()), scale)
-        alphas.append(alpha)
-        freq[k] = fk
-    cum = np.concatenate([np.zeros((256, 1), np.int64),
-                          np.cumsum(freq, axis=1)[:, :-1]], axis=1)
-
-    payload, cnt, states = ans1_encode_chunks_pallas(
-        jnp.asarray(data[None]), jnp.asarray(freq[None], jnp.int32),
-        jnp.asarray(cum[None], jnp.int32))
-    payload = np.asarray(payload[0])
-    cnt = np.asarray(cnt[0])
-    states = np.asarray(states[0])
-
-    # assemble the wire chunk exactly as entropy/ans.py _encode_chunk does
-    bw = BitWriter()
-    bw.write_bits(LOG_RANGE1 - 8, 3)
-    for k in range(256):
-        _write_freqs_header(bw, alphas[k], freq[k], LOG_RANGE1)
-    tiles = CHUNK1 // CHUNK
-    parts = []
-    for t in range(tiles):
-        n_words = int(cnt[t].sum())
-        words = payload[t * CHUNK:t * CHUNK + n_words]
-        parts.append(words.astype(">u2").tobytes())
-    blob = b"".join(parts)
-    eu.write_varint(bw, len(blob))
-    for j in range(4):
-        bw.write_bits(int(states[j]), 32)
-    bw.write_bytes(blob)
-    device_bytes = bw.getvalue()
-
-    bw2 = BitWriter()
-    ANSRangeEncoder(bw2, 1).encode(data)
-    host_bytes = bw2.getvalue()
-    assert device_bytes == host_bytes
-
-
-def test_ans1_xla_glue_matches_host_wire():
-    """CPU path of ans_block.ans1_encode (XLA gather + scan) must produce
-    the exact host ANSRangeEncoder(order=1) wire bytes, incl. a tail."""
-    from kanzi_tpu.core.bits import BitReader, BitWriter
-    from kanzi_tpu.entropy.ans import ANSRangeDecoder, ANSRangeEncoder
-    from kanzi_tpu.ops.ans_block import CHUNK1, ans1_encode
-
-    rng = np.random.default_rng(11)
-    base = (rng.zipf(1.4, CHUNK1 + 70000) % 53).astype(np.uint8)
-    data = np.convolve(base, np.ones(2), "same").astype(np.uint8) % 59
-
-    bw = BitWriter()
-    assert ans1_encode(data, bw) == data.size
-    device_bytes = bw.getvalue()
-
-    bw2 = BitWriter()
-    ANSRangeEncoder(bw2, 1).encode(data)
-    assert device_bytes == bw2.getvalue()
-
-    out = ANSRangeDecoder(BitReader(device_bytes), 1).decode(data.size)
-    assert np.array_equal(np.asarray(out, np.uint8), data)
-
-
 def test_ans1_per_row_normalization_matches_scalar():
     from kanzi_tpu.entropy import utils as eu
 
@@ -395,3 +208,42 @@ def test_ans1_per_row_normalization_matches_scalar():
         f = hist[i].copy()
         eu.normalize_frequencies(f, int(totals[i]), 2048)
         assert np.array_equal(out[i], f)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel: only on an NVIDIA GPU (no interpret mode)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [32, 45, 256])
+def test_cuda_encode_matches_oracle(gpu, n):
+    from kanzi_tpu.ops.ans_cuda import ans0_encode_chunks
+    _check_encode(ans0_encode_chunks, *_zipf_chunks(n, seed=11))
+
+
+@pytest.mark.gpu
+def test_cuda_decode_inverts_encode(gpu):
+    from kanzi_tpu.ops.ans_cuda import ans0_decode_chunks, ans0_encode_chunks
+    chunks, freq, cum = _zipf_chunks(48, seed=5, a=1.4, mod=230)
+    res = _check_encode(ans0_encode_chunks, chunks, freq, cum)
+    _check_decode(ans0_decode_chunks, chunks, freq, cum, *res)
+
+
+@pytest.mark.gpu
+def test_cuda_route_and_gate_round_trip(gpu, monkeypatch):
+    from kanzi_tpu.core.bits import BitReader, BitWriter
+    from kanzi_tpu.entropy.ans import ANSRangeDecoder, ANSRangeEncoder
+    from kanzi_tpu.ops.route import ans0_kernels
+
+    assert ans0_kernels().name == "cuda"
+    rng = np.random.default_rng(23)
+    data = (rng.zipf(1.4, 9 * CHUNK + 777) % 230).astype(np.uint8)
+    host = BitWriter()
+    ANSRangeEncoder(host, order=0).encode(data)
+    monkeypatch.setenv("KANZI_TPU_DEVICE_ANS", "1")
+    bw = BitWriter()
+    ANSRangeEncoder(bw, order=0).encode(data)
+    assert bw.getvalue() == host.getvalue()
+    dec = ANSRangeDecoder(BitReader(bw.getvalue()), order=0)
+    assert dec._device_decode_ok(len(data))
+    assert np.array_equal(dec.decode(len(data)), data)

@@ -40,7 +40,6 @@ def test_device_sa_matches_native(case):
 
 def test_device_bwt_gate_wire_exact(monkeypatch):
     monkeypatch.setenv("KANZI_TPU_DEVICE_BWT", "1")
-    monkeypatch.setenv("KANZI_TPU_PALLAS_INTERPRET", "1")
     x = mixed_corpus(200_000)
     b1 = BWT()
     d1 = b1.forward(x.copy())

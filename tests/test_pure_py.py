@@ -38,7 +38,10 @@ def test_text_inverse_py_matches_native(codec_type):
 
 
 def test_exe_inverse_py_matches_native_elf():
-    so = open("/root/repo/native/_build/libkanzi_native.so", "rb").read()
+    from kanzi_tpu.utils import native
+    if native.get_lib() is None:
+        pytest.skip("native library unavailable")
+    so = open(native._SO, "rb").read()
     x = np.frombuffer(so[:300_000], np.uint8)
     enc = EXECodec({}).forward(x.copy())
     nat = nt.exe_inverse_native(enc, x.size)
